@@ -29,8 +29,8 @@ import numpy as np  # noqa: E402
 def main():
     pid, nprocs, port, out = (int(sys.argv[1]), int(sys.argv[2]),
                               int(sys.argv[3]), sys.argv[4])
-    from raytracercore_tpu.parallel.distributed import (gather_film,
-                                                        init_distributed)
+    from raytracercore.parallel.distributed import (gather_film,
+                                                    init_distributed)
 
     init_distributed(coordinator_address=f"localhost:{port}",
                      num_processes=nprocs, process_id=pid)
@@ -40,14 +40,15 @@ def main():
 
     import jax.numpy as jnp
 
-    from raytracercore_tpu.parallel.mesh import make_mesh
-    from raytracercore_tpu.parallel.shard import (make_sharded_render_pass,
-                                                  place_film, place_scene)
-    from raytracercore_tpu.render.film import Film
-    from raytracercore_tpu.scene import loader
-    from raytracercore_tpu.scene.types import freeze_scene, init_camera
+    from raytracercore.parallel.mesh import make_mesh
+    from raytracercore.parallel.shard import (make_sharded_render_pass,
+                                              place_film, place_scene)
+    from raytracercore.config import SCENES_DIR
+    from raytracercore.render.film import Film
+    from raytracercore.scene import loader
+    from raytracercore.scene.types import freeze_scene, init_camera
 
-    scene = loader.from_file("/root/reference/Scenes/bounce.txt")
+    scene = loader.from_file(str(SCENES_DIR / "bounce.txt"))
     scene.width = scene.height = 32
     arrays = freeze_scene(scene)
     camera = init_camera(scene.cameras[0], 32, 32)

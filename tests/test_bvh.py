@@ -5,11 +5,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from raytracercore_tpu.bvh import build_bvh, count_node_hits
-from raytracercore_tpu.intersect import closest_hit
-from raytracercore_tpu.intersect.dispatch import make_bvh_closest_fn
-from raytracercore_tpu.scene import loader
-from raytracercore_tpu.scene.types import HostScene, HostTriangle, freeze_scene
+from raytracercore.bvh import build_bvh, count_node_hits
+from raytracercore.intersect import closest_hit
+from raytracercore.intersect.dispatch import make_bvh_closest_fn
+from raytracercore.scene import loader
+from raytracercore.scene.types import HostScene, HostTriangle, freeze_scene
 
 
 def random_tri_scene(n=64, seed=0, two_sided=True):
@@ -108,15 +108,15 @@ def test_traversal_single_sided_and_skip():
 
 def test_bounce_scene_bvh_render_matches(bounce_txt):
     """Full integrator equivalence brute vs BVH on the Cornell box."""
-    from raytracercore_tpu.render import trace
+    from raytracercore.render import trace
 
     scene = loader.parse(bounce_txt)
     scene.width = scene.height = 24
     scene.recursion = 4
     arrays = freeze_scene(scene)
     bvh = build_bvh(scene)
-    from raytracercore_tpu.render import camera as cm
-    from raytracercore_tpu.scene.types import init_camera
+    from raytracercore.render import camera as cm
+    from raytracercore.scene.types import init_camera
     cam = init_camera(scene.cameras[0], 24, 24)
     px, py = cm.pixel_grid(24, 24)
     key = jax.random.PRNGKey(11)
@@ -134,9 +134,9 @@ def test_bounce_scene_bvh_render_matches(bounce_txt):
 
 
 def test_gradients_through_bvh_path(bounce_txt):
-    from raytracercore_tpu.diff import (get_material_params,
-                                        with_material_params)
-    from raytracercore_tpu.render import trace
+    from raytracercore.diff import (get_material_params,
+                                    with_material_params)
+    from raytracercore.render import trace
 
     scene = loader.parse(bounce_txt)
     scene.recursion = 3
@@ -171,12 +171,12 @@ def test_native_builder_matches_semantics():
     """The C++ builder produces a valid BVH whose traversal matches brute
     force (structure may differ from the numpy builder; the contract is the
     closest-hit result)."""
-    from raytracercore_tpu.native import native_available
+    from raytracercore.native import native_available
     if not native_available():
         import pytest
         pytest.skip("native builder unavailable")
 
-    from raytracercore_tpu.bvh.builder import build_triangle_bvh
+    from raytracercore.bvh.builder import build_triangle_bvh
     scene = random_tri_scene(120, seed=12)
     arrays = freeze_scene(scene)
     tris = scene.triangles

@@ -1,6 +1,6 @@
 """Scaled-down versions of the five BASELINE.json benchmark configs,
 exercising each capability end-to-end on CPU (the real-size runs happen on
-TPU via bench.py)."""
+the GPU via chip_smoke.py and bench.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -8,20 +8,20 @@ import numpy as np
 import optax
 import pytest
 
-from raytracercore_tpu.bvh import build_bvh
-from raytracercore_tpu.diff import get_material_params, with_material_params
-from raytracercore_tpu.intersect.dispatch import make_bvh_closest_fn
-from raytracercore_tpu.parallel import (make_mesh, make_sharded_render_pass,
-                                        make_train_step, place_film,
-                                        place_scene)
-from raytracercore_tpu.parallel.mesh import ray_sharded
-from raytracercore_tpu.render import Renderer, trace
-from raytracercore_tpu.render.film import Film
-from raytracercore_tpu.render.integrator import BounceType
-from raytracercore_tpu.scene import loader
-from raytracercore_tpu.scene.types import (HostCamera, HostPlane, HostScene,
-                                           HostSphere, HostTriangle,
-                                           freeze_scene, init_camera)
+from raytracercore.bvh import build_bvh
+from raytracercore.diff import get_material_params, with_material_params
+from raytracercore.intersect.dispatch import make_bvh_closest_fn
+from raytracercore.parallel import (make_mesh, make_sharded_render_pass,
+                                    make_train_step, place_film,
+                                    place_scene)
+from raytracercore.parallel.mesh import ray_sharded
+from raytracercore.render import Renderer, trace
+from raytracercore.render.film import Film
+from raytracercore.render.integrator import BounceType
+from raytracercore.scene import loader
+from raytracercore.scene.types import (HostCamera, HostPlane, HostScene,
+                                       HostSphere, HostTriangle,
+                                       freeze_scene, init_camera)
 
 
 def test_config1_cornell_diffuse_emission(bounce_txt):

@@ -9,7 +9,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from raytracercore_tpu.render.film import Film
+from raytracercore.render.film import Film
 
 BIG = float(2 ** 24)   # ulp(BIG) = 2 in f32: +0.5 increments vanish
 SMALL = 0.5

@@ -2,9 +2,8 @@
 
 The committed arrays (tests/golden/films.npz, regenerated only on purpose by
 scripts/make_golden.py) pin the film state of small bounce.txt / die.txt
-renders at seed 0 on the CPU backend — the regression half of the
-golden-parity gate (BASELINE.md; the statistical half against the
-reference's own images is scripts/golden_parity.py → docs/PARITY.md).
+renders at seed 0 on the CPU backend.  The scenes are the in-repo
+reconstructions under scenes/.
 
 Tolerances are loose enough to survive XLA version-to-version reassociation
 but tight enough that any semantic change to camera rays, RNG consumption
@@ -16,8 +15,9 @@ import pathlib
 import numpy as np
 import pytest
 
-from raytracercore_tpu.render.renderer import Renderer
-from raytracercore_tpu.scene import loader
+from raytracercore.config import SCENES_DIR
+from raytracercore.render.renderer import Renderer
+from raytracercore.scene import loader
 
 GOLDEN = pathlib.Path(__file__).parent / "golden" / "films.npz"
 
@@ -31,7 +31,7 @@ CONFIGS = {
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_golden_film(name):
     fname, w, h, spp, cam = CONFIGS[name]
-    scene = loader.from_file(f"/root/reference/Scenes/{fname}")
+    scene = loader.from_file(str(SCENES_DIR / fname))
     scene.width, scene.height = w, h
     r = Renderer(scene, camera_index=cam, seed=0)
     r.step(spp)

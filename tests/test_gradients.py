@@ -7,11 +7,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raytracercore_tpu.diff import get_material_params, with_material_params
-from raytracercore_tpu.render import trace
-from raytracercore_tpu.scene import loader
-from raytracercore_tpu.scene.types import (HostScene, HostSphere,
-                                           HostTriangle, freeze_scene)
+from raytracercore.diff import get_material_params, with_material_params
+from raytracercore.render import trace
+from raytracercore.scene import loader
+from raytracercore.scene.types import (HostScene, HostSphere,
+                                       HostTriangle, freeze_scene)
 
 
 def cornell_mini():

@@ -5,11 +5,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from raytracercore_tpu.render import Renderer, trace
-from raytracercore_tpu.render.renderer import render_pass
-from raytracercore_tpu.scene import loader
-from raytracercore_tpu.scene.types import (HostScene, HostSphere,
-                                           HostTriangle, freeze_scene)
+from raytracercore.render import Renderer, trace
+from raytracercore.render.renderer import render_pass
+from raytracercore.scene import loader
+from raytracercore.scene.types import (HostScene, HostSphere,
+                                       HostTriangle, freeze_scene)
 
 jit_trace = jax.jit(trace)
 
@@ -179,8 +179,8 @@ def test_checkpoint_roundtrip(tmp_path, bounce_txt):
 def test_early_exit_matches_fori(bounce_txt):
     """The while_loop early-exit path must produce bitwise-identical colors
     to the fixed-trip fori path."""
-    from raytracercore_tpu.scene.types import freeze_scene, init_camera
-    from raytracercore_tpu.render import camera as cm
+    from raytracercore.scene.types import freeze_scene, init_camera
+    from raytracercore.render import camera as cm
 
     scene = loader.parse(bounce_txt)
     scene.width = scene.height = 16

@@ -7,15 +7,15 @@ import numpy as np
 
 import jax
 
-from raytracercore_tpu.intersect import HitRecord, jnp_ref
-from raytracercore_tpu.intersect import closest_hit as _closest_hit
+from raytracercore.intersect import HitRecord, jnp_ref
+from raytracercore.intersect import closest_hit as _closest_hit
 
 # Compile once per scene structure — eager dispatch of the many small ops in
 # closest_hit is ~10s/call on CPU.
 closest_hit = jax.jit(_closest_hit)
-from raytracercore_tpu.scene import loader, types
-from raytracercore_tpu.scene.types import (HostPlane, HostScene, HostSphere,
-                                           HostTriangle, freeze_scene)
+from raytracercore.scene import loader, types
+from raytracercore.scene.types import (HostPlane, HostScene, HostSphere,
+                                       HostTriangle, freeze_scene)
 
 
 def make_scene(prims, **kwargs):
@@ -135,7 +135,7 @@ def test_ellipsoid_transformed():
     # scale(2,1,1) about origin: unit sphere → ellipsoid with x-radius 2.
     sph = HostSphere(center=np.array([0.0, 0, 0]), radius=1.0)
     sph.material.two_sided = True
-    import raytracercore_tpu.scene.transforms as T
+    import raytracercore.scene.transforms as T
     sph.transform(T.scale(2, 1, 1), T.scale(0.5, 1, 1))
     arr = make_scene([sph])
     o, d = rays(

@@ -16,13 +16,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raytracercore_tpu.bvh.builder import build_triangle_bvh, triangle_bounds
-from raytracercore_tpu.core import vecmath as vm
-from raytracercore_tpu.intersect.dispatch import closest_hit
-from raytracercore_tpu.render import camera as cam_mod
-from raytracercore_tpu.render.integrator import trace
-from raytracercore_tpu.scene import loader
-from raytracercore_tpu.scene.types import freeze_scene, init_camera
+from raytracercore.bvh.builder import build_triangle_bvh, triangle_bounds
+from raytracercore.core import vecmath as vm
+from raytracercore.intersect.dispatch import closest_hit
+from raytracercore.render import camera as cam_mod
+from raytracercore.render.integrator import trace
+from raytracercore.scene import loader
+from raytracercore.scene.types import freeze_scene, init_camera
 
 N_FUZZ = 512
 
@@ -148,8 +148,8 @@ def test_trace_nan_free_under_fuzz(bounce):
 def test_gradients_finite_under_fuzz(bounce):
     """Material gradients of fuzzed traces stay finite (the masked-Fresnel
     NaN hardening of integrator.trace under reverse AD)."""
-    from raytracercore_tpu.diff import (get_material_params,
-                                        with_material_params)
+    from raytracercore.diff import (get_material_params,
+                                    with_material_params)
     arrays = freeze_scene(bounce)
     o, d = _fuzz_rays(jax.random.PRNGKey(4), 128, scale=3.0)
     params = get_material_params(arrays)

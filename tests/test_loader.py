@@ -1,16 +1,17 @@
-"""Scene loader tests against the two shipped reference scenes.
+"""Scene loader tests against the two reference scenes.
 
-Expected counts/materials are derived by hand from
-/root/reference/Scenes/bounce.txt and die.txt plus the loader semantics in
-/root/reference/RaytracerCore/SceneLoader.cs.
+The counts, materials, transforms and cameras pinned here were derived by
+hand from the reference's Scenes/bounce.txt and die.txt and the loader
+semantics of its SceneLoader.cs.  The files under scenes/ are
+reconstructions written to satisfy exactly these pins.
 """
 
 import numpy as np
 import pytest
 
-from raytracercore_tpu.scene import loader, types
-from raytracercore_tpu.scene.types import (HostPlane, HostSphere,
-                                           HostTriangle, freeze_scene)
+from raytracercore.scene import loader, types
+from raytracercore.scene.types import (HostPlane, HostSphere,
+                                       HostTriangle, freeze_scene)
 
 
 def test_bounce_counts(bounce_txt):

@@ -6,14 +6,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from raytracercore_tpu.bvh.builder import build_triangle_bvh
-from raytracercore_tpu.intersect.dispatch import (closest_hit,
-                                                  make_bvh_closest_fn)
-from raytracercore_tpu.render import camera as cam_mod
-from raytracercore_tpu.render.film import Film
-from raytracercore_tpu.render.renderer import render_passes
-from raytracercore_tpu.scene.meshgen import icosphere, make_mesh_scene
-from raytracercore_tpu.scene.types import init_camera
+from raytracercore.bvh.builder import build_triangle_bvh
+from raytracercore.intersect.dispatch import (closest_hit,
+                                              make_bvh_closest_fn)
+from raytracercore.render import camera as cam_mod
+from raytracercore.render.film import Film
+from raytracercore.render.renderer import render_passes
+from raytracercore.scene.meshgen import icosphere, make_mesh_scene
+from raytracercore.scene.types import init_camera
 
 
 def test_icosphere_counts_and_unit_verts():

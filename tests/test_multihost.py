@@ -44,12 +44,13 @@ def test_two_process_render_matches_single(tmp_path):
     got = np.load(out)
 
     # Single-process oracle: same scene, same keys, unsharded.
-    from raytracercore_tpu.render.film import Film
-    from raytracercore_tpu.render.renderer import render_pass
-    from raytracercore_tpu.scene import loader
-    from raytracercore_tpu.scene.types import freeze_scene, init_camera
+    from raytracercore.config import SCENES_DIR
+    from raytracercore.render.film import Film
+    from raytracercore.render.renderer import render_pass
+    from raytracercore.scene import loader
+    from raytracercore.scene.types import freeze_scene, init_camera
 
-    scene = loader.from_file("/root/reference/Scenes/bounce.txt")
+    scene = loader.from_file(str(SCENES_DIR / "bounce.txt"))
     scene.width = scene.height = 32
     arrays = freeze_scene(scene)
     camera = init_camera(scene.cameras[0], 32, 32)

@@ -7,15 +7,16 @@ import numpy as np
 import optax
 import pytest
 
-from raytracercore_tpu.diff import get_material_params
-from raytracercore_tpu.parallel import (make_mesh, make_sharded_render_pass,
-                                        make_train_step, place_film,
-                                        place_scene)
-from raytracercore_tpu.parallel.mesh import ray_sharded
-from raytracercore_tpu.render.film import Film
-from raytracercore_tpu.render.renderer import render_pass
-from raytracercore_tpu.scene import loader
-from raytracercore_tpu.scene.types import freeze_scene, init_camera
+from raytracercore.config import REPO_ROOT
+from raytracercore.diff import get_material_params
+from raytracercore.parallel import (make_mesh, make_sharded_render_pass,
+                                    make_train_step, place_film,
+                                    place_scene)
+from raytracercore.parallel.mesh import ray_sharded
+from raytracercore.render.film import Film
+from raytracercore.render.renderer import render_pass
+from raytracercore.scene import loader
+from raytracercore.scene.types import freeze_scene, init_camera
 
 
 @pytest.fixture(scope="module")
@@ -98,7 +99,7 @@ def test_prims_sharded_matches_single_device(small_setup):
     """The prims mesh axis: triangle table sharded 4 ways × rays 2 ways,
     per-bounce closest hit min-reduced across devices — must reproduce the
     single-device render exactly (same key ⇒ same paths)."""
-    from raytracercore_tpu.parallel.shard import (
+    from raytracercore.parallel.shard import (
         make_prims_sharded_render_pass, pad_triangles_for_prims)
 
     scene, arrays, camera = small_setup
@@ -124,7 +125,7 @@ def test_overlapped_train_step_matches_single(small_setup):
     (make_overlapped_train_step) must equal the single-device step (psum
     is linear), and its HLO must actually schedule multiple all-reduces —
     the overlapped design artifact SURVEY §7.6 calls for."""
-    from raytracercore_tpu.parallel.shard import make_overlapped_train_step
+    from raytracercore.parallel.shard import make_overlapped_train_step
 
     scene, arrays, camera = small_setup
     optimizer = optax.sgd(1e-2)
@@ -152,7 +153,7 @@ def test_overlapped_train_step_matches_single(small_setup):
     # The material-bucket shape is derived from the scene (VERDICT r3: a
     # hard-coded "f32[14,22]" breaks silently if the material-matrix
     # column count or the test scene changes).
-    from raytracercore_tpu.render.integrator import _material_matrix
+    from raytracercore.render.integrator import _material_matrix
     matm = _material_matrix(arrays.materials)
     bucket_shape = f"f32[{matm.shape[1]},{matm.shape[0]}]"
     hlo = jax.jit(s_ov).lower(params, arrays, camera, target,
@@ -177,7 +178,7 @@ def test_overlapped_train_step_matches_single(small_setup):
 def test_graft_entry_dryrun():
     import importlib.util
     spec = importlib.util.spec_from_file_location(
-        "__graft_entry__", "/root/repo/__graft_entry__.py")
+        "__graft_entry__", REPO_ROOT / "__graft_entry__.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     fn, args = mod.entry()
@@ -192,17 +193,17 @@ def test_bvh_train_step_sharded_matches_single():
     train step whose closest hit routes through make_bvh_closest_fn must
     equal the single-device BVH step exactly (rays are embarrassingly
     parallel; the material-grad psum is the only collective)."""
-    from raytracercore_tpu.bvh.builder import build_triangle_bvh
-    from raytracercore_tpu.intersect.dispatch import make_bvh_closest_fn
-    from raytracercore_tpu.parallel.shard import make_train_step
-    from raytracercore_tpu.scene.meshgen import make_mesh_scene
+    from raytracercore.bvh.builder import build_triangle_bvh
+    from raytracercore.intersect.dispatch import make_bvh_closest_fn
+    from raytracercore.parallel.shard import make_train_step
+    from raytracercore.scene.meshgen import make_mesh_scene
 
     size = 16
     arrays, cam, (v0, e1, e2, mirror, valid) = make_mesh_scene(
         grid=2, subdiv=1, recursion=2, width=size, height=size)
     bvh = build_triangle_bvh(v0, e1, e2, mirror, valid, leaf_size=4,
                              backend="numpy")
-    bvh_fn = make_bvh_closest_fn(bvh, arrays, traversal="xla")
+    bvh_fn = make_bvh_closest_fn(bvh)
     camera = init_camera(cam, size, size)
 
     optimizer = optax.sgd(1e-2)
@@ -228,7 +229,7 @@ def test_train_loop_matches_sequential_steps(small_setup):
     """make_train_loop (one scanned program, round 5) must sample and step
     exactly like n sequential make_train_step calls with the same
     per-step key schedule (fold_in(key, i))."""
-    from raytracercore_tpu.parallel.shard import make_train_loop
+    from raytracercore.parallel.shard import make_train_loop
 
     scene, arrays, camera = small_setup
     optimizer = optax.sgd(1e-2)
@@ -252,3 +253,34 @@ def test_train_loop_matches_sequential_steps(small_setup):
     for k in p:
         np.testing.assert_allclose(np.asarray(pl_[k]), np.asarray(p[k]),
                                    atol=1e-7, err_msg=k)
+
+
+def test_sharded_step_with_kernel_recorder_matches_single(small_setup,
+                                                          monkeypatch):
+    """With the megakernel as the recorder (route forced to "triton", the
+    kernel in the interpreter), the GSPMD step runs the kernel per device
+    under shard_map and matches the single-device step."""
+    from raytracercore import config
+    from raytracercore.render import fused
+
+    real = fused.trace_fused
+    monkeypatch.setattr(config, "trace_route",
+                        lambda scene, dtype: "triton")
+    monkeypatch.setattr(fused, "trace_fused", lambda *a, **k: real(
+        *a, **dict(k, interpret=True)))
+    scene, arrays, camera = small_setup
+    optimizer = optax.sgd(1e-2)
+    params = get_material_params(arrays)
+    target = jnp.full((16, 16, 3), 0.5)
+    key = jax.random.PRNGKey(13)
+    p1, _, l1 = make_train_step(None, optimizer)(
+        params, arrays, camera, target, optimizer.init(params), key)
+    mesh = make_mesh(n_rays=4, devices=jax.devices()[:4])
+    p4, _, l4 = make_train_step(mesh, optimizer)(
+        params, place_scene(mesh, arrays), camera,
+        jax.device_put(target, ray_sharded(mesh, 3)),
+        optimizer.init(params), key)
+    assert float(l4) == pytest.approx(float(l1), rel=1e-5)
+    for k in p1:
+        np.testing.assert_allclose(np.asarray(p4[k]), np.asarray(p1[k]),
+                                   atol=1e-6, err_msg=k)

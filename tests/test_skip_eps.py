@@ -16,8 +16,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from raytracercore_tpu.intersect.dispatch import (_position_eps, closest_hit)
-from raytracercore_tpu.scene import loader
+from raytracercore.intersect.dispatch import (_position_eps, closest_hit)
+from raytracercore.scene import loader
 
 
 def _scene_two_walls(gap: float) -> str:
@@ -40,7 +40,7 @@ tri 3 4 5 mirrored
 def _hit_then_rehit(gap: float):
     """Primary hit on wall A, then re-cast the SAME ray from the hit point
     with A as skip: the result should be wall B (prim 1), not A."""
-    from raytracercore_tpu.scene.types import freeze_scene
+    from raytracercore.scene.types import freeze_scene
 
     scene = loader.parse(_scene_two_walls(gap))
     arrays = freeze_scene(scene)
@@ -73,7 +73,7 @@ def test_skip_grazing_angle_rehit():
     """A bounce ray leaving at a grazing angle along wall A must not re-hit
     the same point, and must eventually be free of A (one-sided wall: the
     grazing ray's later positions diverge from the skip point)."""
-    from raytracercore_tpu.scene.types import freeze_scene
+    from raytracercore.scene.types import freeze_scene
 
     scene = loader.parse(_scene_two_walls(5.0))
     arrays = freeze_scene(scene)

@@ -2,8 +2,9 @@
 
 import numpy as np
 
-from raytracercore_tpu.scene import loader
-from raytracercore_tpu.tools import debug, png
+from raytracercore.config import SCENES_DIR
+from raytracercore.scene import loader
+from raytracercore.tools import debug, png
 
 
 def test_png_roundtrip(tmp_path):
@@ -40,21 +41,21 @@ def test_trace_pixel_bounce_listing(bounce_txt):
         # Tags must come from the BounceType vocabulary.
         for ln in lines[:-1]:
             tag = ln.split()[0]
-            from raytracercore_tpu.render.integrator import BounceType
+            from raytracercore.render.integrator import BounceType
             assert tag in BounceType.NAMES
 
 
 def test_cli_render_and_inspect(tmp_path, monkeypatch):
-    from raytracercore_tpu.tools import cli
+    from raytracercore.tools import cli
 
     out = str(tmp_path / "r.png")
-    cli.main(["render", "/root/reference/Scenes/bounce.txt", "--size", "16",
+    cli.main(["render", str(SCENES_DIR / "bounce.txt"), "--size", "16",
               "--spp", "2", "--recursion", "3", "-o", out])
     img = png.read_png(out)
     assert img.shape == (16, 16, 4)
 
     out2 = str(tmp_path / "ids.png")
-    cli.main(["inspect", "/root/reference/Scenes/bounce.txt", "--size", "16",
+    cli.main(["inspect", str(SCENES_DIR / "bounce.txt"), "--size", "16",
               "-o", out2])
     assert png.read_png(out2).shape == (16, 16, 3)
 
@@ -69,8 +70,8 @@ def test_selection_map_prim(bounce_txt):
 
     # Pick a primitive that is visible from camera 0.
     import jax
-    from raytracercore_tpu.intersect import closest_hit
-    from raytracercore_tpu.scene.types import freeze_scene
+    from raytracercore.intersect import closest_hit
+    from raytracercore.scene.types import freeze_scene
     arrays = freeze_scene(scene)
     o, d = debug._center_rays(scene, 0)
     hit = jax.jit(closest_hit)(arrays, o, d, None)

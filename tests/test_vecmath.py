@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raytracercore_tpu.core import color, vecmath as vm
+from raytracercore.core import color, vecmath as vm
 
 
 def rodrigues_matrix(angle, axis):
